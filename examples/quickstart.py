@@ -11,8 +11,8 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from nbmf_mm_tpu import NBMF
-from nbmf_mm_tpu.utils import generate_synthetic_binary_data
+from nbmf_mm_jax import NBMF
+from nbmf_mm_jax.utils import generate_synthetic_binary_data
 
 # Synthetic binary matrix with known low-rank structure.
 X, W_true, H_true = generate_synthetic_binary_data(

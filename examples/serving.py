@@ -17,9 +17,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from nbmf_mm_tpu import NBMF
-from nbmf_mm_tpu.models.serving import FoldInServer
-from nbmf_mm_tpu.utils import generate_synthetic_binary_data
+from nbmf_mm_jax import NBMF
+from nbmf_mm_jax.models.serving import FoldInServer
+from nbmf_mm_jax.utils import generate_synthetic_binary_data
 
 # Train once.
 X, _, _ = generate_synthetic_binary_data(
@@ -48,7 +48,7 @@ print(f"masked batch: W {W_part.shape}, "
 # On-device fit -> serve pipeline: with device_results=True the factors
 # never visit the host — hand the SolverResult straight to FoldInServer
 # (useful when the host link is slow or the factors are large).
-from nbmf_mm_tpu import solve
+from nbmf_mm_jax import solve
 
 result = solve(X, 8, random_state=0, tol=1e-6, device_results=True)
 server2 = FoldInServer(result, buckets=(64,))

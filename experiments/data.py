@@ -4,7 +4,7 @@ Mirrors the reference pipeline's data layer
 (``examples/reproduce_magron2022.py:25-47``) with two differences:
 
 - ``.rda`` files are read by our built-in RDX2 reader
-  (:mod:`nbmf_mm_tpu.utils.rdata`) instead of pyreadr (unavailable here);
+  (:mod:`nbmf_mm_jax.utils.rdata`) instead of pyreadr (unavailable here);
 - the lastfm/paleo split files are missing from the reference snapshot
   (``.MISSING_LARGE_BLOBS``), so for those we regenerate a seeded 70/15/15
   per-entry split (the animals split file's observed fractions), and we use
@@ -19,7 +19,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from nbmf_mm_tpu.utils.rdata import load_r_matrix
+from nbmf_mm_jax.utils.rdata import load_r_matrix
 
 REFERENCE_ROOT = Path(os.environ.get("NBMF_REFERENCE_ROOT", "/root/reference"))
 LOCAL_DATA = Path(__file__).resolve().parent.parent / "data"
@@ -40,7 +40,7 @@ def load_dataset(name: str) -> np.ndarray:
     """Load one of the paper's binary matrices.
 
     Prefers the repo's standalone ``data/<name>.npz`` (converted once from
-    the ``.rda`` originals with :mod:`nbmf_mm_tpu.utils.rdata`; see
+    the ``.rda`` originals with :mod:`nbmf_mm_jax.utils.rdata`; see
     ``data/README.md``), falling back to the ``.rda`` file in
     ``NBMF_DATA_DIR``.
     """

@@ -84,7 +84,7 @@ def figure2_bars():
     magron = [r["magron_best_val_perplexity"] for r in rows]
     x = np.arange(len(ds))
     fig, ax = plt.subplots(figsize=(7, 4))
-    ax.bar(x - 0.2, ours, 0.4, label="nbmf-mm-tpu (test)")
+    ax.bar(x - 0.2, ours, 0.4, label="nbmf-mm-jax (test)")
     ax.bar(x + 0.2, magron, 0.4, label="Magron 2022 (best val)")
     ax.set_xticks(x, ds)
     ax.set_ylabel("perplexity (exp form)")
@@ -120,7 +120,7 @@ def figure2_protocol_bars():
         errs = [r[m[2]] for m in methods if m[1] in r]
         refs = [r[m[3]] for m in methods if m[1] in r]
         x = np.arange(len(names))
-        ax.bar(x - 0.2, ours, 0.4, yerr=errs, capsize=3, label="nbmf-mm-tpu")
+        ax.bar(x - 0.2, ours, 0.4, yerr=errs, capsize=3, label="nbmf-mm-jax")
         ax.bar(x + 0.2, refs, 0.4, label="Magron 2022 artifacts")
         ax.set_xticks(x, names)
         ax.set_ylabel("test NLL / observed entry")

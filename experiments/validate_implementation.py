@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Validate the algorithmic guarantees on synthetic data, both orientations
-(the TPU-stack analogue of the reference's ``examples/
+(the nbmf_mm_jax analogue of the reference's ``examples/
 validate_implementation.py`` / ``validate_magron_implementation.py``):
 monotone MAP descent, simplex constraints, box constraints, masked training.
 
@@ -20,8 +20,8 @@ from experiments._env import force_platform  # noqa: E402
 
 force_platform()  # correctness checks need CPU + float64 (see _env.py)
 
-from nbmf_mm_tpu import NBMF  # noqa: E402
-from nbmf_mm_tpu.utils import generate_synthetic_binary_data  # noqa: E402
+from nbmf_mm_jax import NBMF  # noqa: E402
+from nbmf_mm_jax.utils import generate_synthetic_binary_data  # noqa: E402
 
 
 def check(label, ok):

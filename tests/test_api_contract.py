@@ -4,7 +4,7 @@ test_api_basic.py / test_nbmf_mm.py property categories)."""
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF
+from nbmf_mm_jax import NBMF
 
 
 def _toy(m=60, n=80, p=0.25, seed=0):
@@ -121,7 +121,7 @@ def test_reconstruction_quality(tiny_clusters):
 def test_invalid_mask_mode_rejected_every_backend():
     """mask_mode typos must raise on every backend up front (ADVICE round 1:
     the Pallas path used to silently fall back to parity semantics)."""
-    from nbmf_mm_tpu import solve
+    from nbmf_mm_jax import solve
 
     X = _toy(12, 9, 0.3)
     mask = np.ones_like(X)
@@ -137,7 +137,7 @@ def test_estimator_backend_param():
     """The estimator exposes `backend` and forwards it to the solver; a
     forced interpret-mode check goes through solve() directly (the Pallas
     estimator path on CPU requires interpret, which fit doesn't expose)."""
-    from nbmf_mm_tpu import solve
+    from nbmf_mm_jax import solve
 
     X = _toy(20, 15, 0.3)
     m_jnp = NBMF(n_components=3, max_iter=20, random_state=0, backend="jnp").fit(X)

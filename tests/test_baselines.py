@@ -12,7 +12,7 @@ import os
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu.models import NBMFEM, LogisticPCA
+from nbmf_mm_jax.models import NBMFEM, LogisticPCA
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 # Default: the vendored copy of the reference's stored artifacts

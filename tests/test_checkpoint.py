@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from nbmf_mm_tpu import NBMF
-from nbmf_mm_tpu.utils import (
+from nbmf_mm_jax import NBMF
+from nbmf_mm_jax.utils import (
     load_checkpoint,
     load_model,
     resume_fit,
@@ -92,7 +92,7 @@ def test_warm_start_zero_simplex_row_direct_solve():
     """solve(W_init=prev.W, H_init=prev.H) with a boundary-zero simplex
     row (beta-dir orientation) is NaN-free too — the guard lives in the
     driver's init ingestion, not in resume_fit."""
-    from nbmf_mm_tpu import solve
+    from nbmf_mm_jax import solve
 
     rng = np.random.default_rng(7)
     X = (rng.random((20, 12)) < 0.4).astype(float)
@@ -113,7 +113,7 @@ def test_warm_start_zero_simplex_row_direct_solve():
 
 
 def test_fit_checkpointed_segments(tmp_path):
-    from nbmf_mm_tpu.utils.checkpoint import fit_checkpointed, load_checkpoint
+    from nbmf_mm_jax.utils.checkpoint import fit_checkpointed, load_checkpoint
 
     X = _toy(seed=9)
     path = tmp_path / "segmented.npz"
@@ -131,7 +131,7 @@ def test_fit_checkpointed_segments(tmp_path):
 
 
 def test_fit_checkpointed_early_convergence(tmp_path):
-    from nbmf_mm_tpu.utils.checkpoint import fit_checkpointed
+    from nbmf_mm_jax.utils.checkpoint import fit_checkpointed
 
     X = _toy(seed=10)
     model = NBMF(n_components=3, max_iter=500, tol=1e-3, random_state=0)
@@ -143,7 +143,7 @@ def test_fit_checkpointed_early_convergence(tmp_path):
 def test_orbax_checkpoint_roundtrip(tmp_path):
     """The Orbax (async-capable, multi-host friendly) variant round-trips
     the same state dict as the npz path."""
-    from nbmf_mm_tpu.utils.checkpoint import (
+    from nbmf_mm_jax.utils.checkpoint import (
         load_checkpoint_orbax,
         save_checkpoint_orbax,
     )
@@ -167,7 +167,7 @@ def test_fit_checkpointed_with_restarts(tmp_path):
     """n_init > 1 selects the best restart in segment 1; later segments
     warm-start that restart instead of crashing on the n_init/W_init
     conflict."""
-    from nbmf_mm_tpu.utils.checkpoint import fit_checkpointed
+    from nbmf_mm_jax.utils.checkpoint import fit_checkpointed
 
     X = _toy(seed=11)
     model = NBMF(n_components=3, max_iter=60, tol=1e-12, random_state=0,

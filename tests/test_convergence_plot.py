@@ -4,8 +4,8 @@ tests/test_convergence.py, which writes convergence_plot.png)."""
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF
-from nbmf_mm_tpu.utils import generate_synthetic_binary_data
+from nbmf_mm_jax import NBMF
+from nbmf_mm_jax.utils import generate_synthetic_binary_data
 
 
 def test_convergence_plot(tmp_path):

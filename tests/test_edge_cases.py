@@ -5,7 +5,7 @@ reference crashes)."""
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF, solve
+from nbmf_mm_jax import NBMF, solve
 
 
 def test_rank_one():
@@ -91,7 +91,7 @@ def test_boundary_prior_f32_losses_finite():
     ``1 - H + eps`` then produced log(0) = -inf losses under jit.  The
     dtype-aware interior clip (ops.updates.clip_upper_interior) must keep
     every backend finite (regression for a 200-draw stress-sweep find)."""
-    from nbmf_mm_tpu import solve
+    from nbmf_mm_jax import solve
 
     rng = np.random.default_rng(1499948972)
     X = (rng.random((10, 127)) < 0.4).astype(float)
@@ -112,7 +112,7 @@ def test_boundary_prior_f32_losses_finite():
 
 
 def test_clip_upper_interior_dtypes():
-    from nbmf_mm_tpu.ops.updates import clip_upper_interior
+    from nbmf_mm_jax.ops.updates import clip_upper_interior
 
     f32 = float(clip_upper_interior(1e-8, np.float32))
     assert f32 < 1.0  # NOT rounded up to 1.0

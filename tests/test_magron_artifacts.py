@@ -48,7 +48,7 @@ def _split(ds):
 
 @pytest.mark.parametrize("ds", ["animals"])  # only animals' true split is committed
 def test_objective_matches_magron_stored_loss(ds):
-    from nbmf_mm_tpu.ops.updates import map_objective, precompute_masked_terms
+    from nbmf_mm_jax.ops.updates import map_objective, precompute_masked_terms
 
     W, H, (k, alpha, beta), loss_curve = _load(ds)
     Y, train_mask, _, _ = _split(ds)

@@ -5,7 +5,7 @@ test_monotonic_objective.py).  Run in float64 on CPU (conftest enables x64)."""
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF, nbmf_mm_solver
+from nbmf_mm_jax import NBMF, nbmf_mm_solver
 
 
 def _toy(m=60, n=80, p=0.25, seed=0):

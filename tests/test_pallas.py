@@ -1,14 +1,15 @@
-"""Pallas fused-kernel parity vs the XLA path (interpret mode on CPU, f32).
+"""Fused-kernel parity vs the XLA path (interpret mode on CPU, f32).
 
-The real-TPU execution of the same kernels is exercised by bench.py and the
-tpu-marked smoke test; here we pin numerical equivalence including padding
-(partial tiles), masking modes, projections, and vmapped restarts.
+The compiled GPU execution of the same kernels is exercised by
+chip_smoke.py and the gpu-marked tests; here we pin numerical equivalence
+including padding (partial blocks), masking modes, projections, vmapped
+restarts, the bitpacked word layout and the split-axis partial sums.
 """
 
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import solve
+from nbmf_mm_jax import solve
 
 F32 = dict(dtype="float32")
 PALLAS = dict(backend="pallas", pallas_interpret=True, block_m=64, block_n=64)
@@ -134,7 +135,7 @@ def test_pallas_mesh_n_init_supported():
     # tests/test_sharded_pallas.py); smoke-check the 2-device route here.
     import jax
 
-    from nbmf_mm_tpu.parallel.sharding import make_mesh
+    from nbmf_mm_jax.parallel.sharding import make_mesh
 
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 devices")
@@ -166,7 +167,7 @@ def test_packed_true_rejects_bf16_mode():
 def test_bf16_mode_disables_auto_packing(monkeypatch):
     """dtype='bfloat16' is an explicit data-storage request; the packed auto
     rule must not silently override it (pack_bits must never run)."""
-    from nbmf_mm_tpu.ops import pallas_sweep as ps
+    from nbmf_mm_jax.ops import pallas_sweep as ps
 
     def _boom(*a, **k):
         raise AssertionError("pack_bits must not be called in bf16 mode")
@@ -182,15 +183,15 @@ def test_f32_auto_packing_engages(monkeypatch):
     packer."""
     import jax.numpy as jnp
 
-    from nbmf_mm_tpu.ops import pallas_sweep as ps
+    from nbmf_mm_jax.ops import pallas_sweep as ps
 
     calls = []
     for name in ("pack_bits", "pack_bits_host"):
         orig = getattr(ps, name)
 
-        def _spy(A, bm, _orig=orig, _name=name):
+        def _spy(A, _orig=orig, _name=name):
             calls.append(_name)
-            return _orig(A, bm)
+            return _orig(A)
 
         monkeypatch.setattr(ps, name, _spy)
     solve(_toy(), 4, max_iter=5, random_state=0, **F32, **PALLAS)
@@ -229,32 +230,30 @@ class TestPackedInput:
         return (np.random.default_rng(seed).random((m, n)) < 0.4).astype(float)
 
     def test_pack_matrix_roundtrip_and_chunked_equality(self):
-        from nbmf_mm_tpu import pack_matrix, pack_matrix_chunked
+        from nbmf_mm_jax import pack_matrix, pack_matrix_chunked
 
         Y = self._toy()
-        pm = pack_matrix(Y, k=4)
+        pm = pack_matrix(Y)
         np.testing.assert_array_equal(np.asarray(pm.unpack()), Y)
-        # chunked (host chunks, stripe-misaligned chunk_rows get rounded)
-        pm2 = pack_matrix_chunked(
-            lambda a, b: Y[a:b], *Y.shape, 4, chunk_rows=100
-        )
+        # chunked (host chunks; chunk_rows not a multiple of 32 gets rounded)
+        pm2 = pack_matrix_chunked(lambda a, b: Y[a:b], *Y.shape, chunk_rows=100)
         np.testing.assert_array_equal(
             np.asarray(pm.words), np.asarray(pm2.words)
         )
-        assert pm2.block_m == pm.block_m and pm2.shape == (300, 200)
+        assert pm2.shape == (300, 200) and pm2.words.shape == (10, 200)
         # device chunks too
         import jax.numpy as jnp
 
         Yd = jnp.asarray(Y)
         pm3 = pack_matrix_chunked(
-            lambda a, b: Yd[a:b], *Y.shape, 4, chunk_rows=128, validate=False
+            lambda a, b: Yd[a:b], *Y.shape, chunk_rows=128, validate=False
         )
         np.testing.assert_array_equal(
             np.asarray(pm.words), np.asarray(pm3.words)
         )
 
     def test_solve_packed_input_bit_identical_to_dense(self):
-        from nbmf_mm_tpu import pack_matrix, solve
+        from nbmf_mm_jax import pack_matrix, solve
 
         Y = self._toy()
         kw = dict(
@@ -262,7 +261,7 @@ class TestPackedInput:
             backend="pallas", pallas_interpret=True,
         )
         dense = solve(Y, 4, **kw)  # auto-packs (binary + eligible)
-        pm = pack_matrix(Y, k=4)
+        pm = pack_matrix(Y)
         packed = solve(pm, 4, **kw)
         np.testing.assert_array_equal(dense.W, packed.W)
         np.testing.assert_array_equal(dense.H, packed.H)
@@ -271,10 +270,10 @@ class TestPackedInput:
         )
 
     def test_packed_input_contract_errors(self):
-        from nbmf_mm_tpu import pack_matrix, solve
+        from nbmf_mm_jax import pack_matrix, solve
 
         Y = self._toy(m=128, n=128)
-        pm = pack_matrix(Y, k=3)
+        pm = pack_matrix(Y)
         kw = dict(backend="pallas", pallas_interpret=True)
         with pytest.raises(ValueError, match="beta-dir"):
             solve(pm, 3, orientation="dir-beta", **kw)
@@ -286,47 +285,45 @@ class TestPackedInput:
             solve(pm, 3, dtype="float64", **kw)
         with pytest.raises(ValueError, match="Pallas backend"):
             solve(pm, 3, backend="jnp")
-        # a layout packed for a different stripe height is caught (the
-        # stripe-local bit planes only combine with the same block_m)
-        from nbmf_mm_tpu import PackedMatrix
+        # words that do not encode the stated shape are caught
+        from nbmf_mm_jax import PackedMatrix
 
-        bad = PackedMatrix(words=pm.words, shape=pm.shape, block_m=64)
         with pytest.raises(ValueError, match="PackedMatrix"):
-            solve(bad, 3, **kw)
+            solve(PackedMatrix(words=pm.words, shape=(200, 128)), 3, **kw)
         with pytest.raises(ValueError, match="binary"):
-            pack_matrix(Y + 0.5, k=3)
+            pack_matrix(Y + 0.5)
 
     def test_pack_matrix_sparse_matches_dense(self):
         """Sparse binary input packs bit-identically to the dense packer
         (and no full dense copy of the matrix is ever built — chunked)."""
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import pack_matrix, pack_matrix_sparse, solve
+        from nbmf_mm_jax import pack_matrix, pack_matrix_sparse, solve
 
         Y = (np.random.default_rng(13).random((300, 200)) < 0.05).astype(
             np.float32
         )
         S = sp.csr_matrix(Y)
-        pm_s = pack_matrix_sparse(S, 4, chunk_rows=64)
-        pm_d = pack_matrix(Y, 4)
+        pm_s = pack_matrix_sparse(S, chunk_rows=64)
+        pm_d = pack_matrix(Y)
         np.testing.assert_array_equal(
             np.asarray(pm_s.words), np.asarray(pm_d.words)
         )
-        assert pm_s.block_m == pm_d.block_m and pm_s.shape == (300, 200)
+        assert pm_s.shape == (300, 200)
         # solves end-to-end like any PackedMatrix
         r = solve(pm_s, 4, max_iter=8, random_state=0, dtype="float32",
                   backend="pallas", pallas_interpret=True)
         assert np.all(np.isfinite(np.asarray(r.losses)))
         # contract errors
         with pytest.raises(ValueError, match="binary"):
-            pack_matrix_sparse(sp.csr_matrix(Y * 3.0), 4)
+            pack_matrix_sparse(sp.csr_matrix(Y * 3.0))
         with pytest.raises(TypeError, match="scipy.sparse"):
-            pack_matrix_sparse(Y, 4)
+            pack_matrix_sparse(Y)
         # explicit stored zeros are legal (still exactly binary)
         S0 = S.copy().tolil()
         S0[0, 0] = 0.0  # explicit zero entry
         np.testing.assert_array_equal(
-            np.asarray(pack_matrix_sparse(S0.tocsr(), 4).words),
+            np.asarray(pack_matrix_sparse(S0.tocsr()).words),
             np.asarray(pm_d.words),
         )
         # non-canonical duplicate entries SUM in the dense view (two stored
@@ -339,7 +336,7 @@ class TestPackedInput:
         )
         assert not Sd.has_canonical_format
         with pytest.raises(ValueError, match="binary"):
-            pack_matrix_sparse(Sd, 4)
+            pack_matrix_sparse(Sd)
         assert Sd.nnz == 2 and not Sd.has_canonical_format  # unmutated
 
     def test_solve_sparse_autoroutes_to_packed(self):
@@ -348,7 +345,7 @@ class TestPackedInput:
         words; ineligible routings densify (same results as dense input)."""
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import solve
+        from nbmf_mm_jax import solve
 
         Y = (np.random.default_rng(7).random((300, 200)) < 0.08).astype(
             np.float32
@@ -430,24 +427,22 @@ class TestWTermsCancellation:
         assert t_true.min() >= 0.0
         assert t_old.min() < -1.0  # catastrophic, not last-ulp, cancellation
 
-    @pytest.mark.parametrize("variant", ["tiled", "stripe", "packed"])
-    def test_kernels_stay_nonnegative_and_accurate(self, variant):
-        from nbmf_mm_tpu.ops.pallas_sweep import pack_bits, w_terms
+    @pytest.mark.parametrize("variant", ["dense", "dense_unsplit", "packed"])
+    def test_kernels_stay_nonnegative_and_accurate(self, variant, monkeypatch):
+        from nbmf_mm_jax.ops import pallas_sweep as ps
+        from nbmf_mm_jax.ops.pallas_sweep import pack_bits, w_terms
 
         W, H, Y = self._case()
         p, q = self._terms(W, H, Y)
         t_true = H.astype(np.float64) @ p.T + (1.0 - H.astype(np.float64)) @ q.T
 
-        if variant == "packed":
-            from nbmf_mm_tpu.ops.pallas_sweep import w_terms_packed
-
-            yp = pack_bits(np.asarray(Y), block_m=128)
-            t = w_terms_packed(W, H, yp, n_real=self.N, block_m=128, interpret=True)
-        else:
-            t = w_terms(
-                W, H, Y, n_real=self.N, block_m=128, block_n=128,
-                interpret=True, stripe=(variant == "stripe"),
-            )
+        packed = variant == "packed"
+        if variant == "dense_unsplit":
+            monkeypatch.setattr(ps, "_TARGET_PROGRAMS", 1)
+        t = w_terms(
+            W, H, pack_bits(Y) if packed else Y, n_real=self.N, packed=packed,
+            block_n=64, interpret=True,
+        )
         t = np.asarray(t)
         assert t.min() >= 0.0
         # Entries reach ~(1/eps)*N ~ 1e10; f32 agreement is relative.
@@ -455,11 +450,11 @@ class TestWTermsCancellation:
 
 
 def test_precision_plumbing_all_paths():
-    """solve/grid/fold-in accept explicit matmul precision on the Pallas
-    path (threaded into every kernel dot_general — round-3 'MXU precision
-    tiers').  On CPU all tiers compute identical f32 products, so explicit
-    precision must reproduce the default bit-for-bit; the real-TPU tier
-    behavior is pinned in tests/test_tpu_smoke.py."""
+    """solve/grid/fold-in accept explicit matmul precision on the fused
+    path (threaded into every kernel dot_general).  On CPU all tiers
+    compute identical f32 products, so explicit precision must reproduce
+    the default bit-for-bit; the GPU tiers are pinned in
+    tests/test_gpu.py and compared with the reference by chip_smoke.py."""
     X = _toy()
     kw = dict(max_iter=10, random_state=0, **F32, **PALLAS)
     a = solve(X, 4, **kw)
@@ -468,15 +463,15 @@ def test_precision_plumbing_all_paths():
         np.testing.assert_array_equal(a.W, b.W)
         np.testing.assert_array_equal(np.asarray(a.losses), np.asarray(b.losses))
 
-    from nbmf_mm_tpu.models.serving import fold_in_fused
-    from nbmf_mm_tpu.parallel.grid import grid_solve
+    from nbmf_mm_jax.models.serving import fold_in_fused
+    from nbmf_mm_jax.parallel.grid import grid_solve
 
     g = grid_solve(X, 3, [1.5], [2.0], max_iter=5, backend="pallas",
                    pallas_interpret=True, precision="highest")
     assert np.all(np.isfinite(g["final_loss"]))
     W1, _ = fold_in_fused(a.H, X, n_iter=5, interpret=True)
     W2, _ = fold_in_fused(a.H, X, n_iter=5, interpret=True,
-                          mxu_precision="highest")
+                          kernel_precision="highest")
     np.testing.assert_array_equal(W1, W2)
 
 
@@ -488,7 +483,7 @@ class TestEstimatorPackedAndSparse:
     def test_fit_matches_dense_on_all_input_kinds(self):
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import NBMF, pack_matrix
+        from nbmf_mm_jax import NBMF, pack_matrix
 
         Y = (np.random.default_rng(21).random((300, 200)) < 0.1).astype(
             np.float32
@@ -499,7 +494,7 @@ class TestEstimatorPackedAndSparse:
         )
         md = NBMF(**opts).fit(Y)
         ms = NBMF(**opts).fit(sp.csr_matrix(Y))
-        mp = NBMF(**opts).fit(pack_matrix(Y, 4))
+        mp = NBMF(**opts).fit(pack_matrix(Y))
         for m in (ms, mp):
             np.testing.assert_array_equal(md.W_, m.W_)
             np.testing.assert_array_equal(md.components_, m.components_)
@@ -513,7 +508,7 @@ class TestEstimatorPackedAndSparse:
         solve and the fit is bit-identical to dense input."""
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import NBMF
+        from nbmf_mm_jax import NBMF
 
         Y = (np.random.default_rng(22).random((60, 40)) < 0.3).astype(float)
         md = NBMF(n_components=3, max_iter=15, random_state=1).fit(Y)
@@ -526,14 +521,14 @@ class TestEstimatorPackedAndSparse:
     def test_fit_input_contract_errors(self):
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import NBMF, pack_matrix
+        from nbmf_mm_jax import NBMF, pack_matrix
 
         Y = (np.random.default_rng(23).random((128, 128)) < 0.2).astype(
             np.float32
         )
         with pytest.raises(ValueError, match="binary"):
             NBMF(n_components=3).fit(sp.csr_matrix(Y * 2.0))
-        pm = pack_matrix(Y, 3)
+        pm = pack_matrix(Y)
         with pytest.raises(ValueError, match="mask"):
             NBMF(
                 n_components=3, dtype="float32", backend="pallas",
@@ -556,7 +551,7 @@ class TestSparseMaskedPacked:
     def test_bit_identical_to_dense(self, mask_mode):
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import solve
+        from nbmf_mm_jax import solve
 
         Y, mask = self._data()
         kw = dict(
@@ -575,7 +570,7 @@ class TestSparseMaskedPacked:
     def test_restarts_and_estimator(self):
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import NBMF, solve
+        from nbmf_mm_jax import NBMF, solve
 
         Y, mask = self._data(seed=32)
         kw = dict(
@@ -599,7 +594,7 @@ class TestSparseMaskedPacked:
     def test_ineligible_and_contract(self):
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import solve
+        from nbmf_mm_jax import solve
 
         Y, mask = self._data(seed=33)
         kw = dict(
@@ -623,33 +618,36 @@ class TestSparseMaskedPacked:
         s2 = solve(S, 3, mask=mask, **kw)
         np.testing.assert_array_equal(d2.W, s2.W)
 
-    def test_packed_true_stripe_ineligible_masked_sparse(self):
-        """packed=True must raise (not silently densify) when the masked
-        sparse geometry cannot run the packed stripe kernels."""
+    def test_packed_true_wide_masked_sparse_packs(self):
+        """packed=True on a wide masked sparse problem (no shape is too wide
+        for the kernels: they loop over blocks) packs both operands from the
+        sparse structures and matches the dense masked solve bit for bit."""
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import solve
+        from nbmf_mm_jax import solve
 
-        Y = sp.random(128, 30000, density=0.001, format="csr", random_state=1)
-        Y.data[:] = 1.0
-        M = sp.random(128, 30000, density=0.01, format="csr", random_state=2)
-        M.data[:] = 1.0
-        with pytest.raises(ValueError, match="stripe-eligible"):
-            solve(Y, 256, mask=M, packed=True, max_iter=2, dtype="float32",
-                  backend="pallas", pallas_interpret=True)
+        rng = np.random.default_rng(3)
+        Y = (rng.random((40, 3000)) < 0.01).astype(np.float32)
+        M = np.maximum((rng.random((40, 3000)) < 0.2), Y > 0).astype(np.float32)
+        kw = dict(max_iter=3, random_state=0, dtype="float32",
+                  backend="pallas", pallas_interpret=True, packed=True)
+        dense = solve(Y, 3, mask=M, **kw)
+        sparse = solve(sp.csr_matrix(Y), 3, mask=sp.csr_matrix(M), **kw)
+        np.testing.assert_array_equal(dense.W, sparse.W)
+        np.testing.assert_array_equal(dense.H, sparse.H)
 
     def test_warm_start_and_checkpoint_compose_with_packed_input(self):
         """W_init/H_init warm starts and segmented checkpointed fits work on
         PackedMatrix and sparse inputs just like dense (same routing)."""
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import NBMF, pack_matrix, solve
-        from nbmf_mm_tpu.utils.checkpoint import fit_checkpointed
+        from nbmf_mm_jax import NBMF, pack_matrix, solve
+        from nbmf_mm_jax.utils.checkpoint import fit_checkpointed
 
         Y = (np.random.default_rng(41).random((300, 200)) < 0.1).astype(
             np.float32
         )
-        pm = pack_matrix(Y, 4)
+        pm = pack_matrix(Y)
         kw = dict(max_iter=6, random_state=0, dtype="float32",
                   backend="pallas", pallas_interpret=True)
         first = solve(pm, 4, **kw)
@@ -676,18 +674,18 @@ class TestSparseMaskedPacked:
     def test_pack_sparse_words_chunk_boundaries_bit_equal(self):
         """pack_sparse_words must be bit-identical to pack_bits_host on the
         padded dense equivalent for ANY chunking — including chunk sizes
-        that split the matrix mid-way and stripes shrunk by _pick_block —
+        that split the matrix mid-way —
         for both the plain and complement forms."""
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu.ops import pallas_sweep as ps
-        from nbmf_mm_tpu.ops.packed import pack_sparse_words
+        from nbmf_mm_jax.ops import pallas_sweep as ps
+        from nbmf_mm_jax.ops.packed import pack_sparse_words
 
         rng = np.random.default_rng(61)
-        for m, n, Mp, Np, bm in [
-            (300, 200, 384, 256, 128),
-            (400, 130, 512, 256, 256),   # _pick_block shrink (Mp%256==0)
-            (100, 50, 128, 128, 128),    # single chunk, heavy padding
+        for m, n, Mp, Np in [
+            (300, 200, 384, 256),
+            (400, 130, 512, 256),
+            (100, 50, 128, 128),    # single chunk, heavy padding
         ]:
             Y = (rng.random((m, n)) < 0.1).astype(np.float32)
             S = sp.csr_matrix(Y)
@@ -695,18 +693,18 @@ class TestSparseMaskedPacked:
             dense[:m, :n] = Y
             comp = np.zeros((Mp, Np), dtype=np.uint8)
             comp[:m, :n] = 1 - Y[:m, :n]
-            for chunk_rows in (None, 128, 256):
-                w = pack_sparse_words(S, Mp, Np, bm, chunk_rows=chunk_rows)
+            for chunk_rows in (None, 96, 256):
+                w = pack_sparse_words(S, Mp, Np, chunk_rows=chunk_rows)
                 np.testing.assert_array_equal(
-                    w, ps.pack_bits_host(dense, bm),
-                    err_msg=f"{(m, n, Mp, Np, bm, chunk_rows)}",
+                    w, ps.pack_bits_host(dense),
+                    err_msg=f"{(m, n, Mp, Np, chunk_rows)}",
                 )
                 wc = pack_sparse_words(
-                    S, Mp, Np, bm, complement=True, chunk_rows=chunk_rows
+                    S, Mp, Np, complement=True, chunk_rows=chunk_rows
                 )
                 np.testing.assert_array_equal(
-                    wc, ps.pack_bits_host(comp, bm),
-                    err_msg=f"complement {(m, n, Mp, Np, bm, chunk_rows)}",
+                    wc, ps.pack_bits_host(comp),
+                    err_msg=f"complement {(m, n, Mp, Np, chunk_rows)}",
                 )
 
     def test_sparse_device_results_stays_on_device(self):
@@ -716,7 +714,7 @@ class TestSparseMaskedPacked:
         import jax
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu import solve
+        from nbmf_mm_jax import solve
 
         Y = (np.random.default_rng(71).random((300, 200)) < 0.08).astype(
             np.float32
@@ -731,42 +729,223 @@ class TestSparseMaskedPacked:
 
 
 def test_artifact_configs_stay_pack_eligible():
-    """The committed artifact harnesses (flagship_scale.py, bench.py,
-    bench_shapes.py) assert pack-eligibility at runtime on hardware; pin it
-    here on CPU so a select_stripe heuristic change can't silently demote a
-    flagship config to the dense path between hardware runs."""
-    from nbmf_mm_tpu.ops import pallas_sweep as ps
+    """Every shape the launchers run (chip_smoke.py, bench.py,
+    experiments/flagship_scale.py) pads to rows that are a multiple of 32
+    (so the words cover them exactly) and to a multiple of each pass's
+    power-of-two blocks."""
+    from nbmf_mm_jax.ops import pallas_sweep as ps
 
-    # (M, N, K) of: bench headline, flagship headline_1e9, ceiling_4e9,
-    # ceiling_1e10, sparse_3pct_1e9, and bench_shapes' K/aspect sweep points
-    # that are expected to pack.
-    packable = [
-        (10_000, 10_000, 128),
-        (100_000, 10_000, 128),
-        (400_000, 10_000, 64),
-        (1_000_000, 10_000, 32),
-        (10_000, 10_000, 16),
-        (10_000, 10_000, 64),
-        (100_000, 1_000, 128),
-    ]
-    for M, N, K in packable:
-        Mp, Np = ps.round_up(M, 512), ps.round_up(N, 512)
-        ok, bm = ps.select_stripe(K, Mp, Np, 1, packed=True)
-        assert ok, (M, N, K)
-        assert Mp % bm == 0 and bm % 32 == 0, (M, N, K, bm)
-        # Mosaic legality of the words stripe block (bm/32, Np): its
-        # second-minor dim must be divisible by 8 or equal the full
-        # words-array rows.  bm=128 (4 word rows) crashed on hardware —
-        # found by the K=256 row of the round-5 shape sweep.
-        assert (bm // 32) % 8 == 0 or bm == Mp, (M, N, K, bm)
-    # The wide aspect point intentionally exceeds the stripe VMEM budget and
-    # must route dense-tiled (bench_shapes records the routing per row).
-    ok, _ = ps.select_stripe(
-        128, ps.round_up(1_000, 512), ps.round_up(100_000, 512), 1, packed=True
+    for M, N in [(10_000, 10_000), (100_000, 10_000), (400_000, 10_000),
+                 (1_000_000, 10_000), (8_192, 10_000), (4_096, 10_000)]:
+        Mp, Np = ps.padded_dims(M, N)
+        assert Mp % 32 == 0 and Mp - M < 128 and Np - N < 64, (M, N)
+        for bm, bn, _, _ in (ps.HLOSS_BLOCKS, ps.W_BLOCKS):
+            assert Mp % ps.block_size(Mp, bm) == 0
+            assert Np % ps.block_size(Np, bn) == 0
+
+
+# --------------------------------------------------------------------------
+# Kernel-level cases: each pass against the plain reference, the word
+# layout, block padding, the split-axis partial sums, and kernel routing.
+
+
+def _kernel_case(m=90, n=70, k=5, seed=0, masked=False):
+    rng = np.random.default_rng(seed)
+    Y = (rng.random((m, n)) < 0.3).astype(np.float32)
+    mask = (rng.random((m, n)) < 0.8).astype(np.float32) if masked else None
+    W = rng.uniform(0.1, 0.9, (k, m)).astype(np.float32)
+    W /= W.sum(axis=0, keepdims=True)
+    H = rng.uniform(0.1, 0.9, (k, n)).astype(np.float32)
+    return Y, mask, W, H
+
+
+def _padded_operands(Y, mask, W, H, mode):
+    """Pad to the kernels' blocks; return the kernel operands plus the
+    XLA-reference operands (ops.updates.precompute_masked_terms)."""
+    import jax.numpy as jnp
+
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+    from nbmf_mm_jax.ops.updates import precompute_masked_terms
+
+    m, n = Y.shape
+    Mp, Np = ps.padded_dims(m, n)
+    Ym, Ym2, Yc = precompute_masked_terms(
+        jnp.asarray(Y), None if mask is None else jnp.asarray(mask), mode
     )
-    assert not ok
-    # K=256 at 10240x10240: bm=256 exceeds the stripe VMEM budget and
-    # bm=128's words block is Mosaic-illegal, so packing must be DECLINED
-    # (it previously returned bm=128 and crashed the hardware shape sweep).
-    ok, _ = ps.select_stripe(256, 10_240, 10_240, 1, packed=True)
-    assert not ok
+    pad = lambda A: ps.pad_to(A, Mp, Np)
+    ops = dict(
+        W=ps.pad_to(jnp.asarray(W), W.shape[0], Mp),
+        H=ps.pad_to(jnp.asarray(H), H.shape[0], Np),
+        Ym=pad(Ym),
+        Ym2=None if mask is None else pad(Ym2),
+        Yc=pad(Yc) if (mask is not None and mode == "corrected") else None,
+    )
+    return ops, (Ym, Ym2, Yc)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("mode", ["unmasked", "parity", "corrected"])
+def test_hloss_pass_matches_reference(packed, mode):
+    """H+loss pass (interpret) vs the plain f64 reference formulas of
+    ops/updates.py on the real region, for dense and packed loaders."""
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+
+    Y, mask, W, H = _kernel_case(masked=mode != "unmasked", seed=1)
+    ops, (Ym, _, Yc) = _padded_operands(Y, mask, W, H, "parity" if mode == "unmasked" else mode)
+    pk = ps.pack_bits if packed else (lambda A: A)
+    m, n = Y.shape
+    Num, Den, ll = ps.hloss_terms(
+        ops["W"], ops["H"], pk(ops["Ym"]),
+        None if ops["Yc"] is None else pk(ops["Yc"]),
+        m_real=m, n_real=n, packed=packed, interpret=True,
+    )
+    wh = W.T.astype(np.float64) @ H.astype(np.float64)
+    a, b = wh + 1e-8, np.maximum(1 - wh, 0) + 1e-8
+    Ym, Yc = np.asarray(Ym, np.float64), np.asarray(Yc, np.float64)
+    np.testing.assert_allclose(np.asarray(Num)[:, :n], W @ (Ym / a), rtol=2e-5)
+    np.testing.assert_allclose(np.asarray(Den)[:, :n], W @ (Yc / b), rtol=2e-5)
+    ll_ref = np.sum(Ym * np.log(a) + Yc * np.log(b))
+    np.testing.assert_allclose(float(ll), ll_ref, rtol=2e-6)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_w_pass_matches_reference(packed, masked):
+    """W pass (interpret) vs the plain f64 reference of ops/updates.py."""
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+
+    Y, mask, W, H = _kernel_case(masked=masked, seed=2)
+    ops, (Ym, Ym2, _) = _padded_operands(Y, mask, W, H, "parity")
+    pk = ps.pack_bits if packed else (lambda A: A)
+    m, n = Y.shape
+    T = ps.w_terms(
+        ops["W"], ops["H"], pk(ops["Ym"]),
+        None if ops["Ym2"] is None else pk(ops["Ym2"]),
+        n_real=n, packed=packed, interpret=True,
+    )
+    wh = W.T.astype(np.float64) @ H.astype(np.float64)
+    a, b = wh + 1e-8, np.maximum(1 - wh, 0) + 1e-8
+    Ym, Ym2 = np.asarray(Ym, np.float64), np.asarray(Ym2, np.float64)
+    T_ref = H @ (Ym / a).T + (1 - H) @ (Ym2 / b).T
+    np.testing.assert_allclose(np.asarray(T)[:, :m], T_ref, rtol=2e-5)
+
+
+@pytest.mark.parametrize("m,n", [(32, 7), (95, 33), (128, 64), (1, 1)])
+def test_pack_layout_round_trip(m, n):
+    """Word row w, bit b holds data row 32w + b: the device packer, the host
+    packer and the sparse packer give the same words, and unpacking
+    inverts them (rows beyond m unpack as zeros)."""
+    import jax.numpy as jnp
+    import scipy.sparse as sp
+
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+    from nbmf_mm_jax.ops.packed import pack_sparse_words
+
+    Y = (np.random.default_rng(m * n).random((m, n)) < 0.4).astype(np.float32)
+    host = ps.pack_bits_host(Y)
+    assert host.shape == (-(-m // 32), n) and host.dtype == np.int32
+    np.testing.assert_array_equal(np.asarray(ps.pack_bits(jnp.asarray(Y))), host)
+    Mp = host.shape[0] * 32
+    np.testing.assert_array_equal(pack_sparse_words(sp.csr_matrix(Y), Mp, n), host)
+    back = np.asarray(ps.unpack_bits(jnp.asarray(host)))
+    np.testing.assert_array_equal(back[:m], Y)
+    assert not back[m:].any()
+    # bit b of word row w is data row 32w + b
+    r = int(np.argmax(Y[:, 0])) if Y[:, 0].any() else None
+    if r is not None:
+        assert (int(host[r // 32, 0]) >> (r % 32)) & 1 == 1
+
+
+@pytest.mark.parametrize(
+    "m,n,block_m,block_n,want",
+    [
+        (10_000, 10_000, None, None, (10_112, 10_048)),
+        (70, 50, None, None, (128, 64)),
+        (70, 50, 64, 64, (128, 64)),
+        (5, 3, None, None, (32, 32)),
+        (300, 200, 48, 100, (320, 256)),  # blocks round up to powers of two
+    ],
+)
+def test_padding_to_power_of_two_blocks(m, n, block_m, block_n, want):
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+
+    assert ps.padded_dims(m, n, block_m, block_n) == want
+    Mp, Np = want
+    for b in (block_m or 64, block_m or 128):
+        bs = ps.block_size(Mp, b)
+        assert bs & (bs - 1) == 0 and bs >= 32 and Mp % bs == 0
+
+
+@pytest.mark.parametrize(
+    "precision,stages",
+    [(None, 3), ("default", 3), ("highest", 2), (("highest", "highest"), 2)],
+)
+def test_pass_config_stages_follow_precision(precision, stages):
+    """The W pass pipelines three stages at TF32 and two with IEEE f32
+    products, whose larger tiles would exceed a block's shared memory."""
+    import jax
+
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+
+    prec = (
+        tuple(jax.lax.Precision(p) for p in precision)
+        if isinstance(precision, tuple)
+        else None if precision is None else jax.lax.Precision(precision)
+    )
+    bm, bn, params = ps._config(10_112, 10_048, None, None, prec, ps.W_BLOCKS)
+    assert (bm, bn, params.num_warps, params.num_stages) == (128, 64, 8, stages)
+    _, _, hparams = ps._config(10_112, 10_048, None, None, prec, ps.HLOSS_BLOCKS)
+    assert hparams.num_stages == 2
+
+
+@pytest.mark.parametrize("target,n_split", [(10, 2), (20, 4), (30, 4), (80, 7)])
+def test_split_axis_partial_sums(target, n_split, monkeypatch):
+    """Splitting the loop axis over a second grid dimension and adding the
+    partials in XLA gives the unsplit results to f32 rounding, for both
+    passes (small blocks give several loop blocks to split; the split
+    count follows the program target)."""
+    import jax.numpy as jnp
+
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+
+    Y, _, W, H = _kernel_case(m=200, n=150, k=4, seed=3)
+    Mp, Np = ps.padded_dims(200, 150, 32, 32)  # (224, 160): 7 x 5 blocks
+    Wp = ps.pad_to(jnp.asarray(W), 4, Mp)
+    Hp = ps.pad_to(jnp.asarray(H), 4, Np)
+    Yp = ps.pad_to(jnp.asarray(Y), Mp, Np)
+    kw = dict(block_m=32, block_n=32, interpret=True)
+    monkeypatch.setattr(ps, "_TARGET_PROGRAMS", 1)
+    assert ps._split(5, 7) == (1, 7)
+    ref = ps.hloss_terms(Wp, Hp, Yp, m_real=200, n_real=150, **kw)
+    T1 = ps.w_terms(Wp, Hp, Yp, n_real=150, **kw)
+    monkeypatch.setattr(ps, "_TARGET_PROGRAMS", target)
+    assert ps._split(5, 7)[0] == n_split  # no split left empty
+    got = ps.hloss_terms(Wp, Hp, Yp, m_real=200, n_real=150, **kw)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5)
+    Ts = ps.w_terms(Wp, Hp, Yp, n_real=150, **kw)
+    np.testing.assert_allclose(np.asarray(Ts), np.asarray(T1), rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "platform,dtype,precision,want",
+    [
+        ("gpu", "float32", None, True),
+        ("gpu", "bfloat16", "default", True),
+        ("gpu", "float64", None, False),
+        ("gpu", "float32", "highest", False),
+        ("cpu", "float32", None, False),
+        ("METAL", "float32", None, False),
+    ],
+)
+def test_resolve_backend_picks_kernels_only_on_gpu(monkeypatch, platform, dtype, precision, want):
+    import jax
+
+    from nbmf_mm_jax.solver.driver import _resolve_backend
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert _resolve_backend("auto", dtype, precision) is want
+    assert _resolve_backend("pallas", dtype, precision) is True
+    assert _resolve_backend("jnp", dtype, precision) is False
+    with pytest.raises(ValueError, match="backend must be"):
+        _resolve_backend("mosaic", dtype)

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from nbmf_mm_tpu.utils import sweep_timer, trace
-from nbmf_mm_tpu.utils.debugging import nan_checks
+from nbmf_mm_jax.utils import sweep_timer, trace
+from nbmf_mm_jax.utils.debugging import nan_checks
 
 
 def test_sweep_timer_measures_compiled_fn():
@@ -44,7 +44,7 @@ def test_nan_checks_catches_nan():
 def test_enable_nan_checks_global_toggle():
     import jax
 
-    from nbmf_mm_tpu.utils.debugging import enable_nan_checks
+    from nbmf_mm_jax.utils.debugging import enable_nan_checks
 
     try:
         enable_nan_checks(True)
@@ -55,7 +55,7 @@ def test_enable_nan_checks_global_toggle():
 
 
 def test_device_memory_stats_shape():
-    from nbmf_mm_tpu.utils.profiling import device_memory_stats
+    from nbmf_mm_jax.utils.profiling import device_memory_stats
 
     stats = device_memory_stats()
     assert isinstance(stats, dict)  # may be empty on CPU backends

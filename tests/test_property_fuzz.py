@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-from nbmf_mm_tpu import solve
+from nbmf_mm_jax import solve
 
 
 @st.composite
@@ -49,7 +49,7 @@ def test_solver_invariants_fuzz(args):
 @given(st.integers(0, 2**31 - 1), st.integers(1, 5))
 @settings(max_examples=8, deadline=None, derandomize=True)
 def test_duchi_projection_fuzz(seed, k):
-    from nbmf_mm_tpu.ops.projection import project_columns_simplex_duchi
+    from nbmf_mm_jax.ops.projection import project_columns_simplex_duchi
 
     rng = np.random.default_rng(seed)
     X = rng.normal(scale=rng.uniform(0.1, 10), size=(k, 17))
@@ -58,92 +58,74 @@ def test_duchi_projection_fuzz(seed, k):
     assert np.all(P >= 0)
 
 
-@given(problem())
-@settings(max_examples=8, deadline=None, derandomize=True)
-def test_stripe_kernel_parity_fuzz(args):
-    """Randomized shapes through the stripe kernels (interpret) must match
-    the tiled kernels on the real region."""
+def _fuzz_operands(args):
+    """Padded kernel operands for a fuzz draw (f32, the kernels' blocks)."""
     import jax.numpy as jnp
 
-    from nbmf_mm_tpu.ops import pallas_sweep as ps
+    from nbmf_mm_jax.ops import pallas_sweep as ps
 
     m, n, k, alpha, beta, p, seed, masked = args
     rng = np.random.default_rng(seed)
-    Mp, Np = ps.round_up(m, 128), ps.round_up(n, 128)
-    Y = jnp.asarray(np.pad((rng.random((m, n)) < p).astype(np.float32),
-                           ((0, Mp - m), (0, Np - n))))
+    Mp, Np = ps.padded_dims(m, n)
+    Yr = (rng.random((m, n)) < p).astype(np.float32)
+    maskr = (rng.random((m, n)) < 0.8).astype(np.float32) if masked else None
+    Ym = Yr * maskr if masked else Yr
+    Ym2 = (1.0 - Yr) * maskr if masked else None
+    pad = lambda A: None if A is None else jnp.asarray(ps.pad_to(A, Mp, Np))
     Wr = rng.uniform(0.1, 0.9, (k, m))
     Wr /= Wr.sum(0, keepdims=True)
-    W = jnp.asarray(np.pad(Wr.astype(np.float32), ((0, 0), (0, Mp - m))))
-    H = jnp.asarray(np.pad(rng.uniform(0.1, 0.9, (k, n)).astype(np.float32),
-                           ((0, 0), (0, Np - n))))
-    kw = dict(block_m=128, block_n=128, interpret=True)
-    Num, Den, ll = ps.hloss_terms(W, H, Y, None, m_real=m, n_real=n, **kw)
-    Num2, Den2, ll2 = ps.hloss_terms(W, H, Y, None, m_real=m, n_real=n,
-                                     block_m=128, interpret=True, stripe=True)
-    np.testing.assert_allclose(np.asarray(Num2)[:, :n], np.asarray(Num)[:, :n],
-                               atol=3e-5, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(Den2)[:, :n], np.asarray(Den)[:, :n],
-                               atol=3e-5, rtol=1e-4)
-    # ll differs only by the constant sub-1e-8-per-pad-element bias
-    pad_elems = Mp * Np - m * n
-    assert abs(float(ll2) - float(ll)) <= 2e-8 * pad_elems + 1e-2
-    T = ps.w_terms(W, H, Y, None, n_real=n, **kw)
-    T2 = ps.w_terms(W, H, Y, None, n_real=n, block_m=128, interpret=True,
-                    stripe=True)
-    np.testing.assert_allclose(np.asarray(T2)[:, :m], np.asarray(T)[:, :m],
-                               atol=3e-5, rtol=1e-4)
+    W = jnp.asarray(ps.pad_to(Wr.astype(np.float32), k, Mp))
+    H = jnp.asarray(ps.pad_to(rng.uniform(0.1, 0.9, (k, n)).astype(np.float32), k, Np))
+    return W, H, pad(Ym), pad(Ym2), (m, n)
+
+
+@given(problem())
+@settings(max_examples=8, deadline=None, derandomize=True)
+def test_stripe_kernel_parity_fuzz(args):
+    """Randomized shapes (any padding, k < 16 padded to the tensor-core
+    minimum) through the fused kernels (interpret) must match the plain
+    f64 formulas on the real region."""
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+
+    W, H, Ymp, Ym2p, (m, n) = _fuzz_operands(args)
+    Num, Den, ll = ps.hloss_terms(W, H, Ymp, None, m_real=m, n_real=n, interpret=True)
+    T = ps.w_terms(W, H, Ymp, Ym2p, n_real=n, interpret=True)
+    W64 = np.asarray(W, np.float64)[:, :m]
+    H64 = np.asarray(H, np.float64)[:, :n]
+    Ym = np.asarray(Ymp, np.float64)[:m, :n]
+    Ym2 = (1.0 - Ym) if Ym2p is None else np.asarray(Ym2p, np.float64)[:m, :n]
+    wh = W64.T @ H64
+    a, b = wh + 1e-8, np.maximum(1.0 - wh, 0.0) + 1e-8
+    np.testing.assert_allclose(np.asarray(Num)[:, :n], W64 @ (Ym / a), rtol=1e-4, atol=3e-5)
+    np.testing.assert_allclose(np.asarray(Den)[:, :n], W64 @ ((1 - Ym) / b), rtol=1e-4, atol=3e-5)
+    ll_ref = np.sum(Ym * np.log(a) + (1 - Ym) * np.log(b))
+    assert abs(float(ll) - ll_ref) <= 1e-5 * abs(ll_ref) + 1e-3
+    T_ref = H64 @ (Ym / a).T + (1 - H64) @ (Ym2 / b).T
+    np.testing.assert_allclose(np.asarray(T)[:, :m], T_ref, rtol=1e-4, atol=3e-5)
 
 
 @given(problem())
 @settings(max_examples=8, deadline=None, derandomize=True)
 def test_packed_kernel_bitwise_fuzz(args):
-    """Randomized shapes through the bitpacked kernels (interpret) must be
-    BIT-IDENTICAL to the dense stripe kernels (select-form on exact 0/1)."""
-    import jax.numpy as jnp
+    """Randomized shapes through the kernels on packed words (interpret)
+    must be BIT-IDENTICAL to the same kernels on dense data (one loader,
+    the same arithmetic on exact 0/1 values)."""
+    from nbmf_mm_jax.ops import pallas_sweep as ps
 
-    from nbmf_mm_tpu.ops import pallas_sweep as ps
+    W, H, Ymp, Ym2p, (m, n) = _fuzz_operands(args)
+    Ypk = ps.pack_bits(Ymp)
+    Ypk2 = ps.pack_bits(Ym2p) if Ym2p is not None else None
+    kw = dict(m_real=m, n_real=n, interpret=True)
 
-    m, n, k, alpha, beta, p, seed, masked = args
-    rng = np.random.default_rng(seed)
-    Mp, Np = ps.round_up(m, 128), ps.round_up(n, 128)
-    Yr = (rng.random((m, n)) < p).astype(np.float32)
-    maskr = (rng.random((m, n)) < 0.8).astype(np.float32) if masked else None
-    Ym = Yr * maskr if masked else Yr
-    Ym2 = (1.0 - Yr) * maskr if masked else None
-    pad = lambda A: None if A is None else jnp.asarray(
-        np.pad(A, ((0, Mp - m), (0, Np - n)))
-    )
-    Ymp, Ym2p = pad(Ym), pad(Ym2)
-    Wr = rng.uniform(0.1, 0.9, (k, m))
-    Wr /= Wr.sum(0, keepdims=True)
-    W = jnp.asarray(np.pad(Wr.astype(np.float32), ((0, 0), (0, Mp - m))))
-    H = jnp.asarray(np.pad(rng.uniform(0.1, 0.9, (k, n)).astype(np.float32),
-                           ((0, 0), (0, Np - n))))
-    Ypk = ps.pack_bits(Ymp, 128)
-    Ypk2 = ps.pack_bits(Ym2p, 128) if Ym2p is not None else None
-
-    # parity-mode hloss (complement in-register on both paths)
-    Num, Den, ll = ps.hloss_terms(W, H, Ymp, None, m_real=m, n_real=n,
-                                  block_m=128, interpret=True, stripe=True)
-    Np_, Dp_, llp = ps.hloss_terms_packed(W, H, Ypk, None, block_m=128,
-                                          interpret=True)
-    np.testing.assert_array_equal(np.asarray(Num), np.asarray(Np_))
-    np.testing.assert_array_equal(np.asarray(Den), np.asarray(Dp_))
-    assert float(ll) == float(llp)
-    if masked:
-        # corrected-mode hloss (explicit complement)
-        Nc, Dc, llc = ps.hloss_terms(W, H, Ymp, Ym2p, m_real=m, n_real=n,
-                                     block_m=128, interpret=True, stripe=True)
-        Ncp, Dcp, llcp = ps.hloss_terms_packed(W, H, Ypk, Ypk2, block_m=128,
-                                               interpret=True)
-        np.testing.assert_array_equal(np.asarray(Nc), np.asarray(Ncp))
-        np.testing.assert_array_equal(np.asarray(Dc), np.asarray(Dcp))
-        assert float(llc) == float(llcp)
-    T = ps.w_terms(W, H, Ymp, Ym2p, n_real=n, block_m=128, interpret=True,
-                   stripe=True)
-    Tp = ps.w_terms_packed(W, H, Ypk, Ypk2, n_real=n, block_m=128,
-                           interpret=True)
+    # parity-mode hloss (complement in registers on both paths), then
+    # corrected-mode hloss (explicit complement) when masked
+    for yc, ycp in [(None, None)] + ([(Ym2p, Ypk2)] if Ym2p is not None else []):
+        dense = ps.hloss_terms(W, H, Ymp, yc, **kw)
+        packed = ps.hloss_terms(W, H, Ypk, ycp, packed=True, **kw)
+        for d, q in zip(dense, packed):
+            np.testing.assert_array_equal(np.asarray(d), np.asarray(q))
+    T = ps.w_terms(W, H, Ymp, Ym2p, n_real=n, interpret=True)
+    Tp = ps.w_terms(W, H, Ypk, Ypk2, n_real=n, packed=True, interpret=True)
     np.testing.assert_array_equal(np.asarray(T), np.asarray(Tp))
 
 
@@ -167,20 +149,19 @@ def test_return_all_consistency_fuzz(seed, n_init):
         assert np.all(np.isfinite(li)) and np.all(np.diff(li) <= 1e-10)
 
 
-@given(st.integers(0, 2**31 - 1), st.sampled_from([128, 256]),
-       st.integers(1, 4), st.integers(1, 3))
+@given(st.integers(0, 2**31 - 1), st.integers(1, 200), st.integers(1, 300))
 @settings(max_examples=8, deadline=None, derandomize=True)
-def test_host_pack_matches_device_pack_fuzz(seed, bm, sm, sn):
+def test_host_pack_matches_device_pack_fuzz(seed, m, n):
     """pack_bits_host must produce bit-identical words to the device packer
-    for every stripe geometry, and unpack_bits must invert both."""
+    for every shape (rows not a multiple of 32 included), and unpack_bits
+    must invert both."""
     import jax.numpy as jnp
 
-    from nbmf_mm_tpu.ops import pallas_sweep as ps
+    from nbmf_mm_jax.ops import pallas_sweep as ps
 
     rng = np.random.default_rng(seed)
-    Mp, Np = bm * sm, 128 * sn
-    X = (rng.random((Mp, Np)) < rng.uniform(0.1, 0.9)).astype(np.float32)
-    host = ps.pack_bits_host(X, bm)
-    dev = np.asarray(ps.pack_bits(jnp.asarray(X), bm))
+    X = (rng.random((m, n)) < rng.uniform(0.1, 0.9)).astype(np.float32)
+    host = ps.pack_bits_host(X)
+    dev = np.asarray(ps.pack_bits(jnp.asarray(X)))
     np.testing.assert_array_equal(host, dev)
-    np.testing.assert_array_equal(np.asarray(ps.unpack_bits(jnp.asarray(host), bm)), X)
+    np.testing.assert_array_equal(np.asarray(ps.unpack_bits(jnp.asarray(host)))[:m], X)

@@ -4,7 +4,7 @@ test_api_basic.py property categories, SURVEY.md §4)."""
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF, NBMFMM
+from nbmf_mm_jax import NBMF, NBMFMM
 
 
 def _rand01(shape, seed=0):
@@ -94,7 +94,7 @@ class TestPublicAPI:
         sparse = pytest.importorskip("scipy.sparse")
         import warnings
 
-        from nbmf_mm_tpu.utils import validation
+        from nbmf_mm_jax.utils import validation
 
         X = _rand01((60, 30))
         model = NBMF(n_components=5, max_iter=40, random_state=0).fit(X)

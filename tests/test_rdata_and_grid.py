@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import solve
-from nbmf_mm_tpu.parallel.grid import grid_solve
+from nbmf_mm_jax import solve
+from nbmf_mm_jax.parallel.grid import grid_solve
 
 _REF_DATA = os.environ.get("NBMF_DATA_DIR", "/root/reference/data")
 
@@ -24,7 +24,7 @@ def test_rda_reader_real_datasets(name, shape):
     path = os.path.join(_REF_DATA, f"{name}.rda")
     if not os.path.exists(path):
         pytest.skip("reference datasets not available")
-    from nbmf_mm_tpu.utils.rdata import load_r_matrix
+    from nbmf_mm_jax.utils.rdata import load_r_matrix
 
     M, obj_name = load_r_matrix(path)
     assert obj_name == name
@@ -33,7 +33,7 @@ def test_rda_reader_real_datasets(name, shape):
 
 
 def test_rda_reader_rejects_garbage(tmp_path):
-    from nbmf_mm_tpu.utils.rdata import read_rda
+    from nbmf_mm_jax.utils.rdata import read_rda
 
     p = tmp_path / "bad.rda"
     p.write_bytes(b"not an rda at all")
@@ -144,7 +144,7 @@ def test_npz_conversion_bit_equals_rda():
     datasets are exactly what the built-in RDX2 reader extracts from the
     committed raw .rda originals — the conversion is re-runnable from the
     repository alone."""
-    from nbmf_mm_tpu.utils.rdata import load_r_matrix
+    from nbmf_mm_jax.utils.rdata import load_r_matrix
 
     repo_data = os.path.join(os.path.dirname(__file__), "..", "data")
     for name in ("animals", "lastfm", "paleo"):

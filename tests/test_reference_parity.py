@@ -35,7 +35,7 @@ def _setup(m=40, n=30, k=4, seed=0):
 
 @pytest.mark.parametrize("alpha,beta", [(1.2, 1.2), (2.0, 0.5)])
 def test_trajectory_parity_unmasked(alpha, beta):
-    from nbmf_mm_tpu import nbmf_mm_solver
+    from nbmf_mm_jax import nbmf_mm_solver
 
     X, W0, H0 = _setup()
     rW, rH, rlosses, _, rn = ref.nbmf_mm_solver(
@@ -53,7 +53,7 @@ def test_trajectory_parity_unmasked(alpha, beta):
 
 
 def test_trajectory_parity_masked():
-    from nbmf_mm_tpu import nbmf_mm_solver
+    from nbmf_mm_jax import nbmf_mm_solver
 
     X, W0, H0 = _setup(seed=3)
     mask = (np.random.default_rng(5).random(X.shape) < 0.85).astype(float)
@@ -68,7 +68,7 @@ def test_trajectory_parity_masked():
 
 
 def test_trajectory_parity_dir_beta():
-    from nbmf_mm_tpu import nbmf_mm_solver
+    from nbmf_mm_jax import nbmf_mm_solver
 
     X, W0, H0 = _setup(seed=7)
     rW, rH, rlosses, _, _ = ref.nbmf_mm_solver(
@@ -85,7 +85,7 @@ def test_trajectory_parity_dir_beta():
 
 def test_convergence_decision_parity():
     """Same tol => same stopping iteration and final loss."""
-    from nbmf_mm_tpu import nbmf_mm_solver
+    from nbmf_mm_jax import nbmf_mm_solver
 
     X, W0, H0 = _setup(seed=11)
     _, _, rlosses, _, rn = ref.nbmf_mm_solver(

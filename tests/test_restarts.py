@@ -4,7 +4,7 @@ reference README promises (README.md:134,144) but never implements."""
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF, solve
+from nbmf_mm_jax import NBMF, solve
 
 
 def _toy(m=40, n=30, p=0.3, seed=0):

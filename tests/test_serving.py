@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF
-from nbmf_mm_tpu.models.serving import FoldInServer
+from nbmf_mm_jax import NBMF
+from nbmf_mm_jax.models.serving import FoldInServer
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def test_unfitted_estimator_rejected():
 
 def test_pallas_serving_matches_xla(model):
     """The fused-kernel serving path agrees with the XLA path at a non-toy
-    shape, masked and unmasked (VERDICT r1 weak #6).
+    shape, masked and unmasked.
 
     One fold-in iteration must match tightly (same kernel math).  After the
     full 50 iterations exact parity is NOT attainable by ANY two
@@ -107,7 +107,7 @@ def test_mesh_sharded_serving(model):
 
     if len(jax.devices()) < 4:
         pytest.skip("needs >= 4 virtual devices")
-    from nbmf_mm_tpu.parallel.sharding import make_mesh
+    from nbmf_mm_jax.parallel.sharding import make_mesh
 
     mesh = make_mesh(jax.devices()[:4])
     rng = np.random.default_rng(7)
@@ -136,7 +136,7 @@ def test_mesh_sharded_estimator_transform(model):
 
     if len(jax.devices()) < 4:
         pytest.skip("needs >= 4 virtual devices")
-    from nbmf_mm_tpu.parallel.sharding import make_mesh
+    from nbmf_mm_jax.parallel.sharding import make_mesh
 
     X = (np.random.default_rng(8).random((64, 40)) < 0.3).astype(float)
 
@@ -185,16 +185,29 @@ def test_packed_serving_continuous_fallback(model):
     np.testing.assert_array_equal(Wa, Wd)
 
 
-def test_packed_true_geometry_raises(model, monkeypatch):
-    """FoldInServer(packed=True) must raise, not silently ship dense bytes,
-    when the chunk geometry is not pack-eligible."""
-    from nbmf_mm_tpu.ops import pallas_sweep as ps
+def test_stage_fold_in_packs_binary_chunks():
+    """Request staging: an exactly-binary chunk ships as words for
+    X*mask and (1-X)*mask that unpack to exactly those operands, zero in
+    the padding; a continuous mask ships dense; packed=True rejects it."""
+    import jax.numpy as jnp
 
-    monkeypatch.setattr(ps, "select_stripe", lambda *a, **k: (False, None))
-    srv = FoldInServer(model, buckets=(8,), dtype="float32", backend="pallas",
-                       pallas_interpret=True, packed=True)
-    with pytest.raises(ValueError, match="not pack-eligible"):
-        srv.transform(np.zeros((4, 40)))
+    from nbmf_mm_jax.models.serving import _stage_fold_in
+    from nbmf_mm_jax.ops import pallas_sweep as ps
+
+    rng = np.random.default_rng(9)
+    X = (rng.random((5, 40)) < 0.3).astype(float)
+    mask = (rng.random((5, 40)) < 0.8).astype(float)
+    A, B, packed = _stage_fold_in(X, mask, 5, 32, 64, jnp.float32, None)
+    assert packed and A.shape == B.shape == (1, 64)
+    Ym = np.asarray(ps.unpack_bits(A))
+    Ym2 = np.asarray(ps.unpack_bits(B))
+    np.testing.assert_array_equal(Ym[:5, :40], X * mask)
+    np.testing.assert_array_equal(Ym2[:5, :40], (1 - X) * mask)
+    assert not Ym[5:].any() and not Ym2[:, 40:].any()
+    A, B, packed = _stage_fold_in(X, mask * 0.5, 5, 32, 64, jnp.float32, None)
+    assert not packed and A.shape == (32, 64)
+    with pytest.raises(ValueError, match="exactly binary"):
+        _stage_fold_in(X, mask * 0.5, 5, 32, 64, jnp.float32, True)
 
 
 def test_warmup_covers_dense_variant(model):
@@ -220,8 +233,8 @@ def test_packed_true_requires_pallas_route(model):
 
 
 def test_foldin_server_packed_true_rejects_nonbinary():
-    """ADVICE r2: packed=True must not silently binarize non-binary chunks —
-    same contract as solve(packed=True)."""
+    """packed=True must not silently binarize non-binary chunks — same
+    contract as solve(packed=True)."""
     import pytest as _pytest
 
     H = np.full((4, 160), 0.5)
@@ -237,7 +250,7 @@ def test_foldin_server_packed_true_rejects_nonbinary():
 def test_fold_in_fused_matches_xla_transform():
     """The estimator's fused transform dispatch (backend='pallas') matches
     the XLA fold-in to f32 kernel tolerance — same seeded W0 draw."""
-    from nbmf_mm_tpu import NBMF
+    from nbmf_mm_jax import NBMF
 
     rng = np.random.default_rng(5)
     X = (rng.random((150, 170)) < 0.35).astype(float)
@@ -251,10 +264,11 @@ def test_fold_in_fused_matches_xla_transform():
 
     fused = NBMF(
         n_components=4, max_iter=40, random_state=3, dtype="float32",
-        backend="pallas",
+        backend="pallas", solver_options={"pallas_interpret": True},
     )
-    # Fit on CPU requires interpret kernels; reuse the fitted factors
-    # instead of refitting (transform only needs components_).
+    # The kernels run interpreted on CPU (asked for through
+    # solver_options); reuse the fitted factors instead of refitting
+    # (transform only needs components_).
     fused.components_ = base.components_
     fused.W_ = base.W_
     fused.orientation = base.orientation
@@ -270,7 +284,7 @@ def test_fold_in_fused_function_packed_matches_dense():
     """fold_in_fused: packed auto-dispatch is bit-identical to packed=False
     on exactly-binary data (the solve() packing contract, applied to the
     fold-in)."""
-    from nbmf_mm_tpu.models.serving import fold_in_fused
+    from nbmf_mm_jax.models.serving import fold_in_fused
 
     rng = np.random.default_rng(7)
     H = rng.uniform(0.1, 0.9, (4, 200))
@@ -291,7 +305,7 @@ def test_accepts_solver_result_device_handoff():
     underlying buffer dtype path) and serves identically to the numpy H."""
     import jax
 
-    from nbmf_mm_tpu import solve
+    from nbmf_mm_jax import solve
 
     X = (np.random.default_rng(3).random((60, 40)) < 0.3).astype(float)
     res = solve(X, 4, max_iter=60, random_state=0, dtype="float32",

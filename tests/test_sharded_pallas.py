@@ -1,4 +1,4 @@
-"""shard_map + Pallas fused solver: per-shard kernels with explicit psums
+"""shard_map + fused-kernel solver: per-shard kernels with explicit psums
 must match the single-device XLA path (8 virtual CPU devices, interpret-mode
 kernels)."""
 
@@ -6,9 +6,9 @@ import jax
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import solve
-from nbmf_mm_tpu.parallel.sharding import make_mesh
-from nbmf_mm_tpu.solver.sharded import plan_shard_padding
+from nbmf_mm_jax import solve
+from nbmf_mm_jax.parallel.sharding import make_mesh
+from nbmf_mm_jax.solver.sharded import plan_shard_padding
 
 F32 = dict(dtype="float32")
 
@@ -36,9 +36,12 @@ def _plain(X, **kw):
 
 
 def test_plan_shard_padding():
-    assert plan_shard_padding(70, 4, 512) == (4 * 128, 128)
-    assert plan_shard_padding(10000, 4, 512) == (4 * 2560, 512)
-    assert plan_shard_padding(100, 1, 512) == (128, 128)
+    # each shard's local block pads like a single-device problem
+    assert plan_shard_padding(70, 50, 4, 2, None, None) == (4 * 32, 2 * 32)
+    assert plan_shard_padding(10000, 10000, 2, 2, None, None) == (2 * 5120, 2 * 5056)
+    assert plan_shard_padding(100, 100, 1, 1, 64, 64) == (128, 128)
+    Mp, Np = plan_shard_padding(300, 200, 4, 2, 128, 128)
+    assert (Mp // 4) % 32 == 0 and Mp >= 300 and Np >= 200
 
 
 def test_sharded_pallas_matches_plain(mesh):
@@ -128,8 +131,8 @@ def test_sharded_mesh_shapes(shape):
 
 
 def test_sharded_pallas_return_all(mesh):
-    """VERDICT r2 weak #3: the 10-init protocol (return_all) runs on the
-    shard_map-Pallas multi-chip fast path and matches the single-chip run."""
+    """The 10-init protocol (return_all) runs on the shard_map multi-device
+    fast path and matches the single-device run."""
     X = _toy(seed=6)
     plain = solve(
         X, 4, max_iter=15, random_state=0, n_init=3, return_all=True,
@@ -242,26 +245,21 @@ class TestSparseMeshPrepacked:
         np.testing.assert_array_equal(s.W, d.W)
 
     def test_stripe_shrink_geometry_stays_on_fast_path(self, mesh):
-        """When select_stripe returns a stripe LARGER than m_loc, the
-        packers shrink it (_pick_block); the sparse-words path must apply
-        the same shrink instead of spuriously rejecting the geometry
-        (regression: mesh (4,1)-like shapes used to raise on packed=True
-        and silently densify on packed=None)."""
+        """Local blocks smaller than the requested kernel block shrink the
+        block (power of two, >= 32); the words of the whole padded matrix
+        still split exactly at shard boundaries, so sparse input on a
+        (4, 1) mesh stays on the packed fast path and matches dense."""
         import jax
         import scipy.sparse as sp
 
-        from nbmf_mm_tpu.parallel.sharding import make_mesh
-        from nbmf_mm_tpu.solver.sharded import mesh_pack_geometry
+        from nbmf_mm_jax.parallel.sharding import make_mesh
 
         mesh41 = make_mesh(jax.devices()[:4], shape=(4, 1))
         Y = (np.random.default_rng(56).random((400, 200)) < 0.07).astype(
             np.float32
         )
-        ok, _, _, eff = mesh_pack_geometry(
-            400, 200, 4, mesh=mesh41, mesh_axes=("rows", "cols"),
-            block_m=128, block_n=128,
-        )
-        assert ok and eff == 128  # m_loc=128 < select_stripe's pack_bm
+        Mp, _ = plan_shard_padding(400, 200, 4, 1, 128, 128)
+        assert (Mp // 4) % 32 == 0
         kw = dict(self._dense_kw(), packed=True)
         d = solve(Y, 4, mesh=mesh41, **kw)
         s = solve(sp.csr_matrix(Y), 4, mesh=mesh41, **kw)

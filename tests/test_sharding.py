@@ -6,8 +6,8 @@ import jax
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF, solve
-from nbmf_mm_tpu.parallel.sharding import data_sharding, factor_shardings, make_mesh
+from nbmf_mm_jax import NBMF, solve
+from nbmf_mm_jax.parallel.sharding import data_sharding, factor_shardings, make_mesh
 
 
 def _toy(m=64, n=48, p=0.3, seed=0):
@@ -93,8 +93,8 @@ def test_estimator_custom_mesh_axis_names():
 def test_nondivisible_axis_pads_and_really_shards(mesh):
     """VERDICT r2 weak #2: M=70 on a 4-shard axis must be zero-padded and
     row-sharded (not silently replicated onto every device)."""
-    from nbmf_mm_tpu.ops.updates import precompute_masked_terms
-    from nbmf_mm_tpu.parallel.sharding import shard_solver_operands
+    from nbmf_mm_jax.ops.updates import precompute_masked_terms
+    from nbmf_mm_jax.parallel.sharding import shard_solver_operands
     import jax.numpy as jnp
 
     X = jnp.asarray(_toy(m=70, n=50, seed=7))

@@ -5,8 +5,8 @@ removed its duchi path — SURVEY.md §4 historical note)."""
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu import NBMF
-from nbmf_mm_tpu.ops.projection import project_columns_simplex_duchi, project_simplex_duchi
+from nbmf_mm_jax import NBMF
+from nbmf_mm_jax.ops.projection import project_columns_simplex_duchi, project_simplex_duchi
 
 
 def _toy(m=40, n=30, p=0.3, seed=0):
@@ -90,7 +90,7 @@ def test_invalid_projection_rejected():
 def test_dir_beta_custom_init_swap_parity():
     """dir-beta with explicit inits equals beta-dir on X.T with swapped
     inits (reference _solver.py:113-123 swap semantics), exactly."""
-    from nbmf_mm_tpu import nbmf_mm_solver
+    from nbmf_mm_jax import nbmf_mm_solver
 
     rng = np.random.default_rng(0)
     X = (rng.random((20, 30)) < 0.3).astype(float)
@@ -111,7 +111,7 @@ def test_dir_beta_single_init_clear_error():
     """Only one init in dir-beta: the reference silently mis-assigns it
     (square data) or fails with a confusing broadcast error; we reject the
     lone factor up front with a clear message."""
-    from nbmf_mm_tpu import nbmf_mm_solver
+    from nbmf_mm_jax import nbmf_mm_solver
 
     X = (np.random.default_rng(1).random((20, 30)) < 0.3).astype(float)
     W0 = np.full((20, 4), 0.5)

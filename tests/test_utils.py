@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from nbmf_mm_tpu.utils import check_is_fitted, generate_synthetic_binary_data
+from nbmf_mm_jax.utils import check_is_fitted, generate_synthetic_binary_data
 
 
 def test_generate_synthetic_shapes_and_binary():
@@ -41,29 +41,34 @@ def test_check_is_fitted_message():
 
 
 def test_compilation_cache_helpers(tmp_path, monkeypatch):
-    """enable_compilation_cache points JAX at the directory (creating it);
-    maybe_enable_compilation_cache is a no-op without NBMF_CACHE_DIR."""
+    """enable_compilation_cache leaves a JAX_COMPILATION_CACHE_DIR choice to
+    JAX and otherwise points JAX at the fixed <checkout>/.jax_cache."""
+    import os
+
     import jax
 
-    from nbmf_mm_tpu.utils.cache import (
-        enable_compilation_cache,
-        maybe_enable_compilation_cache,
+    from nbmf_mm_jax.utils import cache
+
+    names = (
+        "jax_compilation_cache_dir",
+        "jax_persistent_cache_min_compile_time_secs",
+        "jax_persistent_cache_min_entry_size_bytes",
     )
-
-    prev = jax.config.jax_compilation_cache_dir
+    prev = {k: getattr(jax.config, k) for k in names}
     try:
-        monkeypatch.delenv("NBMF_CACHE_DIR", raising=False)
         jax.config.update("jax_compilation_cache_dir", None)
-        assert maybe_enable_compilation_cache() is None
-        assert jax.config.jax_compilation_cache_dir is None
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+        assert cache.enable_compilation_cache() == str(tmp_path / "env")
+        assert jax.config.jax_compilation_cache_dir is None  # nothing set in code
 
-        target = tmp_path / "xla-cache"
-        got = enable_compilation_cache(str(target))
-        assert got == str(target) and target.is_dir()
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        target = tmp_path / "checkout" / ".jax_cache"
+        monkeypatch.setattr(cache, "_DEFAULT_DIR", str(target))
+        assert cache.enable_compilation_cache() == str(target) and target.is_dir()
         assert jax.config.jax_compilation_cache_dir == str(target)
-
-        # Env-var opt-in path respects an already-configured JAX dir.
-        monkeypatch.setenv("NBMF_CACHE_DIR", str(tmp_path / "other"))
-        assert maybe_enable_compilation_cache() == str(target)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        monkeypatch.undo()
+        assert cache._DEFAULT_DIR == os.path.join(repo, ".jax_cache")
     finally:
-        jax.config.update("jax_compilation_cache_dir", prev)
+        for k, v in prev.items():
+            jax.config.update(k, v)
